@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Per-frame RMSD of a selection after mass-weighted Kabsch fit.
 
-The TPU-native shape of the reference's RMSD example: frames stream into
+The device-batched shape of the reference's RMSD example: frames stream into
 (B, N, 3) windows and ONE jitted program computes fit+RMSD for the whole
 window. Run:
 

@@ -1,10 +1,10 @@
-"""molar_tpu — a TPU-native molecular trajectory analysis framework.
+"""molar_tpu — an accelerator-native molecular trajectory analysis framework.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of MolAR
+A ground-up JAX/XLA rebuild of the capabilities of MolAR
 (yesint/molar): structure/trajectory IO, a VMD-like selection language,
 per-frame geometric analysis (RMSD/Kabsch fitting, COM/gyration/inertia,
 PBC-aware cell-grid distance search, SASA, secondary structure, membrane
-properties) and system editing — designed TPU-first: structure-of-arrays
+properties) and system editing — designed device-first: structure-of-arrays
 device buffers, selections compiled to static index/mask arrays, analysis
 windows executed as one jitted/vmapped XLA program with frames sharded over
 the device mesh.

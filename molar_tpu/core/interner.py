@@ -1,7 +1,7 @@
 """String interning for atom/residue/chain/type names.
 
 The reference stores names as 8-byte stack ASCII strings in SoA columns
-(molar/src/atom.rs:6, atom_storage.rs:31-48). On the TPU side string predicates
+(molar/src/atom.rs:6, atom_storage.rs:31-48). On the device side string predicates
 are compile-time (host) work, so names become int32 *codes* into a per-column
 string table. Selection keywords then reduce to ``isin(codes, matched_codes)``
 — one vectorized integer compare instead of N string compares — and regexes run

@@ -142,10 +142,10 @@ def _xp(arr):
 def mat3_apply(m, vecs):
     """``m @ v`` for (...,3) row-vector arrays, written elementwise.
 
-    On TPU a tiny (N,3)@(3,3) matmul would hit the MXU at its default bf16
-    precision — a ~1e-3 relative error that breaks the 1e-5 RMSD fidelity bar.
-    The elementwise form runs on the VPU in exact f32 and fuses with
-    surrounding ops. Works for numpy and jax inputs alike.
+    A tiny (N,3)@(3,3) matmul could run at an accelerator's reduced default
+    matmul precision (TF32 on a GPU, ~1e-3 relative error) and break the
+    1e-5 RMSD fidelity bar. The elementwise form runs in exact f32 and fuses
+    with surrounding ops. Works for numpy and jax inputs alike.
     """
     x, y, z = vecs[..., 0], vecs[..., 1], vecs[..., 2]
     xp = _xp(vecs)

@@ -1,11 +1,11 @@
 """Columnar topology: structure-of-arrays atoms, bonds, molecules.
 
-This is the TPU-era shape of the reference's ``AtomStorage`` + ``BondStorage`` +
+This is the columnar shape of the reference's ``AtomStorage`` + ``BondStorage`` +
 ``Topology`` (molar/src/atom_storage.rs:31-48, bond_storage.rs:32-45,
 topology.rs:12-16). Everything is a host numpy column; string columns are
 interned int32 codes (see :mod:`molar_tpu.core.interner`). Host-side because
 topology is *compile-time* data for the device: selections evaluate against it
-once and ship index/mask arrays to HBM; only mass/charge/vdw/resindex columns
+once and ship index/mask arrays to the device; only mass/charge/vdw/resindex columns
 are mirrored to the device on demand (see ``device_columns``).
 
 Mutating editing ops (add/remove atoms) stay host-side and functional-ish:

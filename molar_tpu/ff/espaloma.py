@@ -16,14 +16,14 @@ backends share that interpreter:
 - jitted jax (:func:`run_gnn_jax`) — the same node walk traced into ONE
   XLA program per padded molecule size (atoms padded to a 16-multiple
   bucket so 60-atom drug-likes hit a handful of cached compiles). MatMuls
-  run at ``Precision.HIGHEST`` so the TPU's default-bf16 MXU cannot move
-  charges (parity ≤1e-5 vs numpy; reference runs tract on the CPU,
+  run at ``Precision.HIGHEST`` so a reduced-precision matmul default (TF32
+  on a GPU) cannot move charges (parity ≤1e-5 vs numpy; reference runs tract on the CPU,
   molar_ff/src/charge.rs:27,290-307).
 
 Dispatch (:func:`espaloma_charges`): the jax path is used when the process
 is already a jax process (``"jax" in sys.modules``) or
 ``MOLAR_ESPALOMA_BACKEND=jax``; pure-host CLI paths keep the numpy walk —
-importing jax (and possibly waking a remote TPU backend) to charge one
+importing jax (and initialising an accelerator backend) to charge one
 small molecule would cost more than it saves. ``MOLAR_ESPALOMA_BACKEND=
 numpy`` forces the host walk.
 """
@@ -115,8 +115,9 @@ def _jax_forward(n_pad: int):
 
     Cached per bucket: molecules are padded up to 16-multiples, so a
     typical small-molecule corpus compiles a handful of programs total.
-    HIGHEST matmul precision keeps the TPU's bf16-MXU default from
-    perturbing charges (CLAUDE.md precision rule; parity test ≤1e-5)."""
+    HIGHEST matmul precision keeps a reduced-precision default (TF32 on a
+    GPU) from perturbing charges (the geometry precision rule; parity test
+    ≤1e-5)."""
     import jax
     import jax.numpy as jnp
 
@@ -329,7 +330,7 @@ def _use_jax() -> bool:
     if mode == "numpy":
         return False
     # auto: ride along when the process is already a jax process (backend
-    # warm or about to be); never wake a remote TPU just for charges.
+    # warm or about to be); never start an accelerator just for charges.
     return "jax" in sys.modules
 
 

@@ -1,7 +1,7 @@
 """XTC trajectory handler over the native C++ codec.
 
 Replaces the reference's molly-crate path (molar/src/io/xtc_handler.rs) with a
-TPU-era design: the file is memory-mapped and *indexed up front* (one cheap
+device-feeding design: the file is memory-mapped and *indexed up front* (one cheap
 header scan), which buys exact random access (seek by frame/time/last — the
 reference does a backward header scan instead, xtc_handler.rs:245-257) and
 frame-level parallel decode: every frame is independent, so a thread pool
@@ -288,8 +288,7 @@ class XtcHandler(FormatHandler):
 
         XTC coordinates *are* ints times 1/precision; shipping the ints and
         multiplying on device reproduces the float decode bit-exactly at half
-        the host->device bytes (the transfer is the hot wire on tunneled
-        backends). Raises ValueError when the window can't be represented
+        the host->device bytes. Raises ValueError when the window can't be represented
         (coordinate beyond +-32767 quantized units, uncompressed tiny frame,
         or mixed precisions) — callers fall back to :meth:`read_frames`.
 

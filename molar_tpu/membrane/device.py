@@ -6,8 +6,8 @@ Voronoi clip loop). This module traces the ENTIRE per-frame pipeline —
 marker COMs, patch adjacency, normal seeding, local frames, quadric fits,
 curvature, Voronoi cells, marker smoothing, curvature smoothing and tail
 order parameters — into one jitted program scanned over a window of frames,
-so a 16-frame window costs one device dispatch (SURVEY §7: "batched quadric
-fits are very TPU-friendly"; reference loop: molar_membrane/src/lib.rs:661-760
+so a 16-frame window costs one device dispatch (SURVEY §7: batched quadric
+fits suit an accelerator; reference loop: molar_membrane/src/lib.rs:661-760
 rayon par_iter over lipids, re-expressed as lipid-axis arrays under jit).
 
 Scale note: patches are a top-K padded (L, K) structure (K sized from the
@@ -19,16 +19,16 @@ distance matrix and the optional curvature-smoothing shell expansion touch
 Numerics: the device path computes in f32 (matching the reference's Float
 build; molar_membrane works in f32 throughout), while the host path keeps
 numpy f64 — parity tests hold to ~1e-4..1e-3 relative, not bitwise. All
-3-vector transforms are elementwise (VPU) per the bf16-MXU rule; the
-quadric normal equations contract with ``precision=HIGHEST``.
+3-vector transforms are elementwise (no reduced-precision matmul can touch
+them); the quadric normal equations contract with ``precision=HIGHEST``.
 
 Boxes: the box KIND (orthorhombic vs triclinic) is a static, build-time
 choice — the same compile-time class split :mod:`molar_tpu.selection.compiled`
 makes — but the box VALUES are per-frame inputs, so NPT rescaling stays
 exact. Triclinic frames run the fractional-round + 26-lattice-correction
 min image (core.pbc.shortest_vector semantics, re-expressed as a running
-min over unrolled candidate shifts: no computed-index gathers, which the
-TPU tolerates badly at (L, L) scale — see CLAUDE.md). The candidate
+min over unrolled candidate shifts: no computed-index gathers at (L, L)
+scale, which crashed device workers on the previous accelerator). The candidate
 VECTORS are rebuilt inside the trace from each frame's box columns
 (unpruned ±1 combinations; the host's pruning is only an optimization).
 
@@ -97,8 +97,8 @@ def _min_image_tric(vec, mat, inv, corr):
     26 lattice-corrected candidates (core.pbc.shortest_vector semantics,
     periodic_box.rs:25-66). Running-min over unrolled shifts instead of
     argmin + take_along_axis: computed-index gathers at (L, L, K) scale
-    are a TPU worker hazard (CLAUDE.md), while 26 fused elementwise
-    select steps keep the working set at one (..., 3) buffer."""
+    crashed device workers on the previous accelerator, while 26 fused
+    elementwise select steps keep the working set at one (..., 3) buffer."""
     import jax.numpy as jnp
 
     from ..core.pbc import mat3_apply
@@ -122,8 +122,8 @@ def _solve6_cholesky(M, rhs):
 
     Returns (coefs, ok) where ok is the "Cholesky succeeds" flag the host
     path expresses as eigvalsh(M) > 0 (membrane.py:696): all pivots positive
-    and finite. Unrolled scalar recurrences keep everything on the VPU —
-    no lapack custom-call, no MXU.
+    and finite. Unrolled scalar recurrences keep everything elementwise —
+    no solver library call, no matmul.
     """
     import jax.numpy as jnp
 
@@ -159,10 +159,9 @@ def _voronoi_planes(points, pmask):
     """Scatter-free Voronoi cell geometry via candidate vertices.
 
     The sequential Sutherland-Hodgman clip (a jnp fori_loop port of
-    :func:`molar_tpu.ops.voronoi.voronoi_cells_batch`, removed after the
-    A/B — see docs/perf_notes.md round-4) cost 3 TPU scatters per cut per
-    frame — measured ~0.5 s per 16-frame window at
-    72 lipids. This formulation is pure reductions: the cell of the origin
+    :func:`molar_tpu.ops.voronoi.voronoi_cells_batch`, removed after an
+    A/B on the previous accelerator) cost 3 scatters per cut per frame.
+    This formulation is pure reductions: the cell of the origin
     is the intersection of P = K+4 half-planes (K bisectors + the bounding
     box), its vertices are plane-pair intersections that satisfy every
     other half-plane, and each surviving plane contributes one edge whose
@@ -360,9 +359,9 @@ class MembraneDevice:
     a larger cap (same tier pattern as the neighbor-search caps).
 
     ``engine``: ``"device"`` (default backend), ``"cpu"`` (commit window
-    inputs to the CPU backend — the measured winner for small membranes,
-    docs/perf_notes.md), or ``"auto"`` (pick at the first window from the
-    per-frame work estimate x window size; tasks.engine crossovers).
+    inputs to the CPU backend), or ``"auto"`` (the accelerator when one is
+    present, else pick at the first window from the per-frame work
+    estimate x window size; see tasks.engine).
     """
 
     def __init__(
@@ -448,9 +447,8 @@ class MembraneDevice:
         # (clamped: lax.top_k needs k <= L whatever the caller asked for)
         self.patch_cap = max(1, min(int(patch_cap), self.n_lipids))
         # Engine selection (tasks.engine): "device" = default backend,
-        # "cpu" = commit window inputs to the CPU backend (measured winner
-        # for small membranes: 72 lipids CPU-jit 134 fps vs TPU 41.5 —
-        # docs/perf_notes.md), "auto" = pick from the per-frame work
+        # "cpu" = commit window inputs to the CPU backend, "auto" = the
+        # accelerator when there is one, else pick from the per-frame work
         # estimate at the first compute_window (window size amortizes
         # dispatch, so the decision needs B).
         if engine not in ("auto", "cpu", "device"):
@@ -472,10 +470,9 @@ class MembraneDevice:
         Terms: the L x L head-distance matrix + top_k patch search
         (~10 flops/pair), per-lipid candidate-vertex Voronoi over K^2 pairs
         (~40 each), and the 6x6 quadric Cholesky (~1e3). Order of magnitude
-        only — the engine crossovers it feeds are ~2 decades apart
-        (tasks.engine.DEVICE_FLOPS_FLOOR): 72-lipid bilayers land ~1e6-1e7
-        (CPU-jit wins, measured 134 vs 41.5 fps), 4608-lipid ~3e8 (device
-        wins, measured ~2x the native single core).
+        only: it decides between host numpy and CPU-jit when there is no
+        accelerator (tasks.engine.JIT_FLOPS_FLOOR). 72-lipid bilayers land
+        ~1e6-1e7, 4608-lipid ~3e8.
         """
         L, K = float(self.n_lipids), float(self.patch_cap)
         return L * (10.0 * L + 40.0 * K * K + 1000.0)
@@ -643,8 +640,7 @@ class MembraneDevice:
             fit_pts = mpk + (zs - z)[..., None] * to_lab[:, None, :, 2]
 
             # Voronoi cells in the local tangent plane — candidate-vertex
-            # formulation (reductions only; the sequential clip's scatters
-            # measured ~0.5 s/window on TPU)
+            # formulation (reductions only; no scatters)
             pts2 = jnp.where(pmask[..., None], local[:, :, :2], 0.0)
             pts2 = jnp.where(jnp.isfinite(pts2), pts2, 0.0)
             has_edge, wall, edge1, edge2, edge_ok = _voronoi_planes(
@@ -870,7 +866,11 @@ class MembraneDevice:
         if self.engine == "auto" and self.engine_resolved is None:
             from ..tasks.engine import engine_device, pick_engine
 
-            self.engine_resolved = pick_engine(self._per_frame_flops(), B)
+            verdict = pick_engine(self._per_frame_flops(), B)
+            # This body has no numpy twin: a "host" verdict (work too small
+            # for any jit to pay) runs on the CPU backend, never on the
+            # accelerator.
+            self.engine_resolved = "cpu" if verdict == "host" else verdict
             if self.engine_resolved == "cpu":
                 self._engine_dev = engine_device("cpu")
         if self._engine_dev is not None:

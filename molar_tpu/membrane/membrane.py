@@ -1,6 +1,6 @@
 """Lipid membrane analysis: patches, normals, curvature, areas, order.
 
-The TPU-era molar_membrane (reference: molar_membrane/src/{lib,lipid_molecule,
+The molar_membrane rebuild (reference: molar_membrane/src/{lib,lipid_molecule,
 lipid_species}.rs). TOML-configured per-species lipid definitions; per frame:
 
 1. per-lipid unwrap + head/mid/tail markers (COMs of marker selections);
@@ -514,7 +514,7 @@ class Membrane:
     #
     # The per-frame pipeline is batched over the lipid axis (arrays over all
     # lipids + one padded patch matrix) instead of per-lipid Python loops —
-    # the TPU-era expression of the reference's rayon par_iter_mut over
+    # the array expression of the reference's rayon par_iter_mut over
     # lipids (molar_membrane/src/lib.rs:661-760). Only the 2D Voronoi
     # half-plane clipping stays per-lipid. Results are written back onto the
     # LipidMolecule objects, so outputs are unchanged.

@@ -6,7 +6,7 @@
 // smallidx, nbytes, bit-packed multi-radix integers with delta-coded
 // "small" runs (water-swap interchange on the first run element).
 //
-// Role: TPU-era replacement of the reference's `molly` Rust crate
+// Role: replacement of the reference's `molly` Rust crate
 // (molar/src/io/xtc_handler.rs) — host-side serial bit-twiddling belongs in
 // native code feeding the device prefetch queue. Exposed as a C ABI for
 // ctypes.

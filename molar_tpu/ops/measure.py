@@ -1,8 +1,8 @@
 """Device (JAX) batched geometric measures.
 
-The TPU execution model for per-frame analysis (SURVEY §7 / measure.rs
+The device execution model for per-frame analysis (SURVEY §7 / measure.rs
 semantics): gather the selection's atoms once per frame window into
-``(B, n, 3)`` blocks resident in HBM, then run every frame of the window
+``(B, n, 3)`` blocks resident in device memory, then run every frame of the window
 through one jitted, vmapped program. All functions here are pure jnp,
 broadcast over arbitrary leading batch dims, and keep the reference numerics:
 
@@ -12,8 +12,9 @@ broadcast over arbitrary leading batch dims, and keep the reference numerics:
 * inertia eigenvalues ascending, third axis = cross of first two.
 
 Matmul-shaped contractions (covariance, inertia) use
-``precision='highest'`` so the MXU's default bf16 rounding cannot break the
-1e-5 fidelity contract; everything else is VPU element-wise math.
+``precision='highest'`` so a reduced-precision default (TF32 on a GPU)
+cannot break the 1e-5 fidelity contract; everything else is element-wise
+math.
 """
 
 from __future__ import annotations
@@ -102,12 +103,12 @@ def min_image(vec, boxes, invs, corrections=None, pbc=(True, True, True)):
 def contiguous_segments_dense(segment_ids, weights=None):
     """Static slot-major dense layout for sorted contiguous segment ids.
 
-    TPU-first segment reduction (the per-residue splits of measure.rs /
+    Scatter-free segment reduction (the per-residue splits of measure.rs /
     ``Sel.split_*`` always yield sorted contiguous runs): instead of a
-    scatter (``segment_sum`` — serialized on TPU) or a per-frame scan,
+    scatter (``segment_sum``, atomics on a GPU) or a per-frame scan,
     pad every run to the longest run length so segment sums become one
     static gather plus a small dense masked reduction with the segment
-    axis on the VPU lanes.
+    axis last. The sums are deterministic, unlike a scatter-add's.
 
     Returns ``(idx, w, counts)``:
 
@@ -159,8 +160,8 @@ def dense_segment_com_gyration(coords, idx, w):
     ``coords`` ``(..., n, 3)`` with ``(idx, w)`` from
     :func:`contiguous_segments_dense` (w carrying masses) ->
     ``(com (..., nseg, 3), gyr (..., nseg))``. One static per-component
-    1-D gather each (row gathers on ``(n, 3)`` are a TPU compile trap),
-    reductions over the small slot axis with segments on lanes.
+    1-D gather each (instead of an ``(n, 3)`` row gather), reductions over
+    the small slot axis with segments last.
     """
     lmax, nseg = w.shape
     msum = jnp.sum(w, axis=0)
@@ -292,9 +293,9 @@ def kabsch(centered1, centered2, masses, iters: int = 60):
     from the covariance — found with shifted power iteration. This always
     yields a *proper* rotation (the reflection fix of measure.rs:613-643 is
     implicit in maximizing the quadratic form), matches the SVD solution to
-    ~1e-6, and — the reason it exists — compiles as straight-line VPU
-    arithmetic instead of jnp.linalg.svd's iterative lowering (which cost
-    ~4 minutes of XLA compile time per shape on TPU).
+    ~1e-6, and — the reason it exists — compiles as straight-line
+    arithmetic instead of jnp.linalg.svd's iterative lowering (a library
+    call per frame, and slow to compile).
     """
     m = masses / jnp.sum(masses)
     s = jnp.einsum("...ni,...nj,n->...ij", centered2, centered1, m, precision=_HI)

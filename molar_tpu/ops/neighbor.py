@@ -1,19 +1,19 @@
 """Device (JAX) cell-grid neighbor search with periodic minimum-image.
 
-The TPU re-expression of the reference's rayon cell-pair search
+The device re-expression of the reference's rayon cell-pair search
 (molar/src/distance_search.rs): points are binned to cells with a
 sort + searchsorted, cells materialize as a fixed-capacity (n_cells, cap)
 member table, and each query atom scans its 27-cell neighborhood. All shapes
 are static, so the whole search jits, vmaps over frames, and fuses with the
-downstream analysis. Parallelism = the atom axis on the VPU x frames via
-vmap (vs. rayon work-stealing over cell pairs).
+downstream analysis. Parallelism = the atom axis x frames via vmap/scan
+(vs. rayon work-stealing over cell pairs).
 
-TPU layout note: the hot path is **structure-of-arrays** — x/y/z live in
+Layout note: the hot path is **structure-of-arrays** — x/y/z live in
 separate (n,) planes and candidate blocks are (n, cap). A (n, cap, 3) AoS
-layout would make XLA tile the size-3 axis into 128 lanes (a 42x memory
-blowup on gather outputs — observed as a 32 GB allocation for a 100k-atom
-frame window). Min-image is computed componentwise from the box matrix
-scalars on the VPU.
+layout lets a compiler pad the size-3 minor axis to its tile width (this
+happened on the accelerator the code was first written for, as a many-GB
+allocation for a 100k-atom frame window). Min-image is computed
+componentwise from the box matrix scalars.
 
 Static-shape contract:
 
@@ -122,8 +122,8 @@ def _rank_in_run(sorted_flat):
     """Rank of each element within its run of equal values (sorted input).
 
     ``i - cummax(run_start_positions)`` — an associative scan, NOT
-    jnp.searchsorted(x, x): the binary-search lowering measured 104 ms for
-    100k elements on TPU vs ~2 ms for the scan.
+    jnp.searchsorted(x, x), whose binary-search lowering was far slower on
+    the accelerator this was first written for (not re-measured on a GPU).
     """
     m = sorted_flat.shape[0]
     idx = jnp.arange(m, dtype=jnp.int32)
@@ -252,9 +252,9 @@ def _blocked_planes(values_list, flat, n_cells: int, cap: int, fill):
     """Scatter per-point planes into cell-blocked (n_cells, cap) layout.
 
     Returns (blocked planes, slot per point (sorted order), order, overflow).
-    This is the TPU-shaped cell grid: per-cell rows are contiguous, so the
+    This is the blocked cell grid: per-cell rows are contiguous, so the
     neighbor scan is a row gather + dense block math instead of random
-    per-atom gathers (which measured ~2 s/frame at 100k atoms).
+    per-atom gathers.
 
     ``slot`` is non-decreasing by construction (sorted cell ids x cap + rank)
     and unique unless a cell overflows ``cap`` — in which case the overflow
@@ -497,7 +497,7 @@ def within_mask(
 
     Cell-blocked algorithm: both sets are bucketed into (n_cells, cap) planes,
     and each of the 27 offsets is one dense (n_cells, cap_src, cap_tgt)
-    distance block — structured row gathers + VPU math only. With
+    distance block — structured row gathers + elementwise math only. With
     ``max_tgt_cells`` set (static), the sparse-target variant iterates only
     the occupied target cells (the right choice when the target selection is
     much smaller than the system).
@@ -506,7 +506,7 @@ def within_mask(
 
     * ``corrections is None`` (orthorhombic / no triclinic candidates): the
       periodic image is resolved per (cell, offset) as a broadcast lattice
-      shift (:func:`_cells_shift`) — ~9 VPU ops/pair instead of the ~45-op
+      shift (:func:`_cells_shift`) — ~9 ops/pair instead of the ~45-op
       inverse-transform/round/forward-transform min-image chain, and padding
       can be a huge-coordinate sentinel (no rounding to pull it back to d=0),
       which drops the validity planes and their scatters. Offsets that alias
@@ -536,8 +536,8 @@ def within_mask(
     """
     tgt_cap = tgt_cap or cap
     n_cells = dims[0] * dims[1] * dims[2]
-    # Per-component 1-D gathers: a (n, 3) row gather lowers poorly on TPU
-    # (slow compile AND a real gather for what is often the identity).
+    # Per-component 1-D gathers instead of one (n, 3) row gather (slow to
+    # compile, and a real gather for what is often the identity).
     x, y, z = coords[..., 0], coords[..., 1], coords[..., 2]
     src = coords if src_idx is None else jnp.stack(
         [x[src_idx], y[src_idx], z[src_idx]], axis=-1
@@ -594,11 +594,10 @@ def within_mask(
             otz = jnp.where(pad, big_t, tzb[occ][:, None, :])
 
             # One offset per loop iteration. Grouped (9/27 offsets per
-            # iteration), T-minor transposed, ghost-padded XLA, and three
-            # Pallas variants all measured equal or worse (see
-            # docs/perf_notes.md round-2 kernel campaign) — the stencil is
-            # bound by the (T,) row-gather rate, not by block math or loop
-            # count, and this form has the fastest compile.
+            # iteration), T-minor transposed and ghost-padded forms were no
+            # faster on the accelerator this was first tuned for, where the
+            # stencil was bound by the (T,) row-gather rate; this form has
+            # the fastest compile. Not yet compared on a GPU.
             def body(o, hit_blocks):
                 off = offs_j[o]
                 scells, (shx, shy, shz), ok = _cells_shift(

@@ -12,7 +12,7 @@ Reference semantics (molar/src/distance_search.rs):
   set 2; pair search returns (i, j[, d]) pairs.
 
 This module is the *host* implementation: plain vectorized numpy, chunked to
-bound memory. It doubles as the ground truth the jitted TPU kernels
+bound memory. It doubles as the ground truth the jitted device kernels
 (:mod:`molar_tpu.ops.neighbor`) are tested against. The algorithm is the
 bucketed form of the reference's cell grid: points are binned to cells, cells
 are materialized as a fixed-capacity (n_cells, cap) index matrix, and each

@@ -5,7 +5,7 @@ The reference's SASA is the exact PowerSasa power diagram
 (ops/sasa_host.py) and approximate Shrake-Rupley on device; this module is
 the exact device formulation: the SAME Lee-Richards slicing as the host
 ground truth, re-expressed as dense batched tensor math so it jits, vmaps
-over frames, and runs on the TPU VPU:
+over frames, and runs as elementwise math on the device:
 
 * per atom: ``n_slices`` z-slabs relative to its own center (identical slab
   placement to the host, so parity is pure float error);
@@ -100,9 +100,8 @@ def sasa(
     ``n_slices`` to float32 accuracy.
 
     ``sort_axis0``: run the interval-union sort/scan along the MAJOR axis
-    (intervals transposed to axis 0) instead of the minor/lane axis — each
-    bitonic stage is then a full-width row select instead of lane shuffles
-    (benchmarks/sasa_probe.py measures which wins on the current toolchain).
+    (intervals transposed to axis 0) instead of the minor axis. Which
+    layout sorts faster depends on the backend; not yet measured on a GPU.
     """
     coords = jnp.asarray(coords)
     radii = jnp.asarray(radii, coords.dtype)
@@ -171,8 +170,8 @@ def sasa(
 
         # union sweep: sort by lo, running cummax of hi. Key-value lax.sort
         # (not argsort + take_along_axis: the two (B, S, 2K) computed-index
-        # gathers were both slow and implicated in a TPU worker crash at
-        # K ~ 300 on the 50k-atom workload).
+        # gathers were both slow and implicated in a device worker crash at
+        # K ~ 300 on the 50k-atom workload on the previous accelerator).
         if sort_axis0:
             lo_t = jnp.transpose(los, (2, 0, 1))  # (2K, B, S)
             hi_t = jnp.transpose(his, (2, 0, 1))
@@ -534,7 +533,7 @@ class SasaSeries:
     """Reusable exact-SASA evaluator for trajectories (device).
 
     The reference PowerSasa keeps its power diagram alive and ``update``-s it
-    per frame (molar/src/sasa.rs:52-121); the TPU-era analog keeps a
+    per frame (molar/src/sasa.rs:52-121); the device analog keeps a
     fixed-capacity Verlet neighbor list alive and rebuilds it only when any
     atom drifted more than skin/2 from its build position. ``update(coords)``
     returns the exact per-atom areas for the new coordinates.

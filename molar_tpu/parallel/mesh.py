@@ -1,11 +1,13 @@
 """Multi-chip execution: frames sharded over a device mesh.
 
-The reference is single-node Rayon; its TPU-native re-expression (SURVEY §2.7)
+The reference is single-node Rayon; its re-expression here (SURVEY §2.7)
 shards the **frame axis** — trajectory analysis is embarrassingly parallel
-over frames, so a window ``(B, N, 3)`` splits B/n_devices per chip, topology
-index arrays replicate, and the only cross-chip communication is the
-reduction of time-averaged observables (mean RMSD, histograms, order
-parameters), which XLA lowers to `psum` over ICI.
+over frames, so a window ``(B, N, 3)`` splits B/n_devices per device,
+topology index arrays replicate, and the only cross-device communication is
+the reduction of time-averaged observables (mean RMSD, histograms, order
+parameters), which XLA lowers to a `psum` collective.
+
+Meshes are flat lists of devices: nothing here assumes a physical topology.
 
 Two wrappers, two body styles:
 
@@ -41,8 +43,12 @@ FRAMES = "frames"
 
 
 def frame_mesh(n_devices: Optional[int] = None) -> Mesh:
+    """1-D frame mesh over the first ``n_devices`` devices (default: all).
+    Asking for more devices than exist is an error, never a smaller mesh."""
     devs = jax.devices()
     n = n_devices or len(devs)
+    if n > len(devs):
+        raise ValueError(f"need {n} devices, have {len(devs)}")
     return Mesh(np.array(devs[:n]), axis_names=(FRAMES,))
 
 
@@ -226,7 +232,7 @@ class MeshWindowRunner:
 
 
 # ---------------------------------------------------------------------------
-# 2-D (frames x atoms) sharding: systems too large for one chip's HBM
+# 2-D (frames x atoms) sharding: systems too large for one device's memory
 # ---------------------------------------------------------------------------
 
 ATOMS = "atoms"
@@ -234,9 +240,9 @@ ATOMS = "atoms"
 
 def frame_atom_mesh(n_frame_devices: int, n_atom_devices: int) -> Mesh:
     """2-D mesh: the frame axis is the embarrassingly parallel one; the atom
-    axis splits a single frame's coordinates across chips (for systems whose
-    (B, N, 3) window exceeds one chip's HBM) with `psum` reductions riding
-    ICI for per-frame observables."""
+    axis splits a single frame's coordinates across devices (for systems
+    whose (B, N, 3) window exceeds one device's memory) with `psum`
+    reductions for per-frame observables."""
     devs = jax.devices()
     n = n_frame_devices * n_atom_devices
     if n > len(devs):
@@ -266,7 +272,8 @@ def com_gyration_sharded(mesh: Mesh) -> Callable:
     def kernel(coords, masses):
         # local shard: coords (B/nf, N/na, 3), masses (N/na,)
         msum = jax.lax.psum(jnp.sum(masses), ATOMS)
-        # weighted coordinate sums, accumulated elementwise (MXU bf16 trap)
+        # weighted coordinate sums, accumulated elementwise (no matmul, so
+        # no reduced-precision matmul default can touch them)
         wsum = jax.lax.psum(
             jnp.sum(coords * masses[None, :, None], axis=1), ATOMS
         )

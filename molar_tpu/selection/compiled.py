@@ -1,6 +1,6 @@
 """Device-compiled selections: state-dependent expressions as jitted mask fns.
 
-The TPU-native half of the selection design (SURVEY §7 / BASELINE north star):
+The device half of the selection design (SURVEY §7 / BASELINE north star):
 topology-only subtrees collapse to host-precomputed constant masks (the
 ``Precomputed`` analog), while coordinate-dependent nodes compile to a pure
 jax function ``(coords, box, inv) -> bool[N]`` that re-evaluates per frame
@@ -229,7 +229,7 @@ def compile_selection(
         def frame_corr(b):
             if not tric:
                 return None
-            # candidate = i*col0 + j*col1 + k*col2, elementwise (no MXU).
+            # candidate = i*col0 + j*col1 + k*col2, elementwise (no matmul).
             return (
                 ijk[:, 0:1] * b[:, 0][None, :]
                 + ijk[:, 1:2] * b[:, 1][None, :]

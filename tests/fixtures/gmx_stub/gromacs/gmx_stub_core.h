@@ -1,7 +1,7 @@
 // Minimal mock of the GROMACS API surface used by
 // molar_tpu/native/gromacs_plugin.cpp, checked into tests so the plugin —
 // which otherwise only compiles against a full GROMACS source+build tree —
-// gets a syntax check AND a runnable mock build in CI (VERDICT r1 item 9).
+// gets a syntax check AND a runnable mock build in CI (round-1 review item 9).
 //
 // The mock read_tpx_state/read_checkpoint_trxframe ignore the path and
 // synthesize a deterministic 3-atom water; tests/test_gromacs_plugin.py

@@ -1,18 +1,18 @@
-"""tasks.engine: measured-crossover engine selection.
+"""tasks.engine: engine selection.
 
-The heuristic encodes the round-4/5 perf campaign (docs/perf_notes.md
-"Config workloads" table): tiny per-frame work -> host numpy, medium ->
-CPU-jit, large -> accelerator. On the CPU-forced test backend there is no
-accelerator, so "device"-class work degrades to "cpu" — the degrade path
-is itself part of the contract (reference analog: molar/src/par.rs wasm
-serial shim).
+With an accelerator present every body runs there (measured on the GPU at
+both ends of the membrane workload; see the module docstring). Without one,
+tiny per-dispatch work -> host numpy, the rest -> CPU-jit. On the
+CPU-forced test backend there is no accelerator, so the degrade path is
+what runs — itself part of the contract (reference analog:
+molar/src/par.rs wasm serial shim).
 """
 
 import numpy as np
 import pytest
 
+from molar_tpu.tasks import engine
 from molar_tpu.tasks.engine import (
-    DEVICE_FLOPS_FLOOR,
     JIT_FLOPS_FLOOR,
     accelerator_device,
     engine_device,
@@ -26,7 +26,13 @@ def test_pick_engine_thresholds():
     assert pick_engine(JIT_FLOPS_FLOOR * 10) == "cpu"
     # tests force the CPU platform: accelerator-class work degrades to cpu
     assert accelerator_device() is None
-    assert pick_engine(DEVICE_FLOPS_FLOOR * 10) == "cpu"
+    assert pick_engine(JIT_FLOPS_FLOOR * 1e4) == "cpu"
+
+
+def test_pick_engine_prefers_present_accelerator(monkeypatch):
+    monkeypatch.setattr(engine, "accelerator_device", lambda: object())
+    assert pick_engine(JIT_FLOPS_FLOOR / 10) == "device"
+    assert pick_engine(JIT_FLOPS_FLOOR * 1e4, 64) == "device"
 
 
 def test_pick_engine_window_amortization():
@@ -109,3 +115,21 @@ def test_membrane_engine_rejects_unknown(tmp_path):
     memb.add_ids_to_group("all", range(len(memb.lipids)))
     with pytest.raises(MembraneError):
         MembraneDevice(memb, engine="fastest")
+
+
+def test_membrane_host_verdict_runs_on_cpu_backend(tmp_path, monkeypatch):
+    # A "host" verdict has no numpy twin in MembraneDevice: it must resolve
+    # to the CPU backend, never fall through to the accelerator.
+    from molar_tpu.membrane import Membrane
+    from molar_tpu.membrane.device import MembraneDevice
+    from test_membrane_device import TOML, make_bilayer
+
+    monkeypatch.setattr(engine, "pick_engine", lambda *a, **k: "host")
+    system = make_bilayer()
+    memb = Membrane(system, TOML.format(out=str(tmp_path), extra=""))
+    memb.add_ids_to_group("all", range(len(memb.lipids)))
+    dev = MembraneDevice(memb, engine="auto")
+    window = np.stack([system.state.coords[dev.subset]] * 2)
+    out = dev.compute_window(window.astype(np.float32))
+    assert dev.engine_resolved == "cpu"
+    assert out["valid"].shape[0] == 2

@@ -1,6 +1,6 @@
 """FrameSelection: the task-facing selection wiring across all three tiers.
 
-Verifies the documented contract (VERDICT round-1 weak item: the fallback
+Verifies the documented contract (round-1 review weak item: the fallback
 wiring from a trajectory task was untested): static selections evaluate once,
 compiler-supported state-dependent selections run on device per window, and
 compiler-rejected expressions transparently fall back to per-frame host

@@ -235,3 +235,55 @@ def test_contact_pairs_dense_overflow_flag(scene):
     )
     assert int(count) > 8
     assert bool(overflow)
+
+
+# The six cases the former hand-written stencil kernel was checked on (same
+# boxes, cutoffs and caps), now on the XLA search: the dense stencil, a grid
+# with a length-2 axis (wrap aliasing), the ghost-plane variant and partial
+# PBC.
+_XLA_CASES = {
+    "dense-seed11-c0.5": dict(seed=11, n=700, nt=90, cutoff=0.5, cap=48,
+                              tgt_cap=32),
+    "dense-seed3-c0.8": dict(seed=3, n=700, nt=90, cutoff=0.8, cap=48,
+                             tgt_cap=32),
+    "small-grid-len2-axis": dict(seed=5, n=200, stride=5, cutoff=0.9,
+                                 cap=128, tgt_cap=64,
+                                 diag=(2.0, 4.0, 4.0), lo=0.0, hi=4.0),
+    "ghost-seed7-c0.5": dict(seed=7, n=900, nt=120, cutoff=0.5, cap=64,
+                             tgt_cap=32, ghost=True),
+    "ghost-seed19-c0.9": dict(seed=19, n=900, nt=120, cutoff=0.9, cap=64,
+                              tgt_cap=32, ghost=True),
+    "ghost-partial-pbc": dict(seed=4, n=500, stride=6, cutoff=0.5, cap=64,
+                              tgt_cap=32, ghost=True,
+                              pbc=(True, False, True)),
+}
+
+
+@pytest.mark.parametrize("case", list(_XLA_CASES), ids=list(_XLA_CASES))
+def test_within_mask_xla_matches_host(case):
+    p = _XLA_CASES[case]
+    rng = np.random.default_rng(p["seed"])
+    box = PeriodicBox(np.diag(p.get("diag", (4.0, 5.0, 6.0))).astype(np.float32))
+    coords = rng.uniform(p.get("lo", -2.0), p.get("hi", 8.0),
+                         (p["n"], 3)).astype(np.float32)
+    pbc = p.get("pbc", (True, True, True))
+    src = np.arange(p["n"])
+    if not pbc[1]:
+        # a non-periodic axis only holds atoms inside the box
+        src = src[(coords[:, 1] >= 0) & (coords[:, 1] < 5.0)]
+    if "stride" in p:
+        tgt = src[:: p["stride"]]
+    else:
+        tgt = np.sort(rng.choice(p["n"], p["nt"], replace=False))
+    dims = neighbor.grid_dims(box.box_extents(), p["cutoff"])
+    mask, ofl = neighbor.within_mask(
+        jnp.asarray(coords), jnp.asarray(src), jnp.asarray(tgt), p["cutoff"],
+        jnp.asarray(box.matrix), jnp.asarray(box.inv), dims=dims,
+        cap=p["cap"], tgt_cap=p["tgt_cap"], pbc=pbc,
+        ghost=p.get("ghost", False),
+    )
+    assert not bool(ofl)
+    got = src[np.asarray(mask)]
+    want = neighbor_host.search_within(p["cutoff"], coords, src, tgt, box,
+                                       PbcDims(*pbc))
+    assert np.array_equal(got, want), (len(got), len(want))

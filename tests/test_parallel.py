@@ -57,7 +57,7 @@ def test_pad_to_multiple():
 
 def test_frame_atom_mesh_com_gyration(mesh):
     """2-D (frames x atoms) sharding: psum over the atom axis (SURVEY §2.7
-    'multi-chip' row; for frames too large for one chip's HBM)."""
+    'multi-chip' row; for frames too large for one device's memory)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     from molar_tpu.parallel import com_gyration_sharded, frame_atom_mesh
@@ -81,7 +81,7 @@ def test_frame_atom_mesh_com_gyration(mesh):
 
 
 # ---------------------------------------------------------------------------
-# Production path: WindowPipeline(mesh=...) — frames-over-ICI via shard_map
+# Production path: WindowPipeline(mesh=...) — frames over devices via shard_map
 # ---------------------------------------------------------------------------
 
 
@@ -230,3 +230,12 @@ def test_overflow_retry_mesh_mode(tmp_path, mesh):
     counts_m = run(mesh)
     for a, b in zip(counts_1, counts_m):
         np.testing.assert_array_equal(a, b)
+
+
+def test_frame_mesh_refuses_more_devices_than_exist():
+    import jax
+
+    n = len(jax.devices())
+    assert frame_mesh(n).devices.size == n
+    with pytest.raises(ValueError, match="need"):
+        frame_mesh(n + 1)

@@ -1,4 +1,4 @@
-"""Exact device Lee-Richards SASA vs the host ground truth (VERDICT r1 #8).
+"""Exact device Lee-Richards SASA vs the host ground truth (round-1 review #8).
 
 Contract: same slicing formulation on both sides => parity is pure float
 error, ≤ 1e-4 relative per atom (reference exactness bar: sasa.rs PowerSasa

@@ -1,4 +1,4 @@
-"""Pinned selection golden battery (VERDICT r1 item 6 substitute).
+"""Pinned selection golden battery (round-1 review item 6 substitute).
 
 The reference's cross-tool parity corpus (VMD/Pteros fixtures,
 molar/tests/generated_{vmd,pteros}_tests.in) targets albumin.pdb, which is

@@ -1,4 +1,4 @@
-"""The workload benchmarks are self-verifying (VERDICT r4 item 2): every
+"""The workload benchmarks are self-verifying (round-4 review item 2): every
 row reduces its device outputs to the scalar its native denominator
 (benchmarks/native_workloads.cpp, native_membrane.cpp) emits, and main()
 aborts with rc=1 on mismatch or trivially-empty accumulations. These tests
@@ -17,7 +17,8 @@ import workloads  # noqa: E402
 
 
 @pytest.fixture()
-def argv(monkeypatch):
+def argv(monkeypatch, restore_cache_config):
+    # (main() turns on the persistent compile cache)
     def set_argv(*extra):
         monkeypatch.setattr(
             sys, "argv",

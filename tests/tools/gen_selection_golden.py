@@ -1,4 +1,4 @@
-"""Generate the pinned selection golden battery (VERDICT r1 item 6).
+"""Generate the pinned selection golden battery (round-1 review item 6).
 
 The reference validates its selection engine against VMD/Pteros on
 ``albumin.pdb`` (molar/tests/generated_{vmd,pteros}_tests.in) — a fixture not
